@@ -58,14 +58,14 @@ def main():
         "edges": bench._img_edges(size, size),
     }
 
-    from oavif_tpu.av1 import encode as enc_mod
-    from oavif_tpu.av1 import frame as frame_mod
-    from oavif_tpu.av1 import encode_tpu
-    from oavif_tpu.av1.entropy import fast as fast_mod
-    from oavif_tpu.av1 import obu as obu_mod
-    from oavif_tpu.av1 import mux as mux_mod
-    from oavif_tpu.metric import ssimulacra2 as met_mod
-    from oavif_tpu import tq
+    from oavif_jax.av1 import encode as enc_mod
+    from oavif_jax.av1 import frame as frame_mod
+    from oavif_jax.av1 import device_plan
+    from oavif_jax.av1.entropy import fast as fast_mod
+    from oavif_jax.av1 import obu as obu_mod
+    from oavif_jax.av1 import mux as mux_mod
+    from oavif_jax.metric import ssimulacra2 as met_mod
+    from oavif_jax import tq
 
     wrap(enc_mod, "rgb_to_yuv444", "rgb->yuv")
     wrap(enc_mod, "yuv444_to_rgb", "yuv->rgb(recon)")
@@ -77,8 +77,8 @@ def main():
     wrap(enc_mod, "mux_avif", "mux")
     wrap(frame_mod, "encode_frame_planes", "TOTAL-frame-encode")
     wrap(fast_mod, "tile_encode_native", "C-tile-encode")
-    wrap_method(encode_tpu.FramePlanner, "plan", "planner.plan")
-    wrap_method(encode_tpu.FramePlanner, "__init__", "planner.init(upload)")
+    wrap_method(device_plan.FramePlanner, "plan", "planner.plan")
+    wrap_method(device_plan.FramePlanner, "__init__", "planner.init(upload)")
     orig_batch = met_mod.compute_ssimulacra2_batch
 
     def timed_batch(*a, **k):
@@ -89,18 +89,18 @@ def main():
         return out
 
     met_mod.compute_ssimulacra2_batch = timed_batch
-    import oavif_tpu.tq.driver as drv
+    import oavif_jax.tq.driver as drv
     # driver imports the symbol inside the closure at call time
     # (from ..metric.ssimulacra2 import compute_ssimulacra2_batch)
     # so patch the module attr is enough.
 
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
-    from oavif_tpu.tq.driver import search_encode
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions
+    from oavif_jax.tq.driver import search_encode
 
-    backend = TpuBackend()
+    backend = OavifBackend()
 
     def make_ctx(img):
         h, w = img.shape[:2]

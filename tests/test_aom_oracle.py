@@ -14,13 +14,13 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from oavif_tpu.av1.frame import TileEncoder
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.av1.frame import TileEncoder
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
 
 
 def _aom():
-    from oavif_tpu.io import aom_ctypes
+    from oavif_jax.io import aom_ctypes
 
     if not aom_ctypes.available():
         pytest.skip("libaom unavailable")
@@ -28,7 +28,7 @@ def _aom():
 
 
 def _dav1d():
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     return decode_to_yuv
 
@@ -81,7 +81,7 @@ def test_aom_dav1d_ours_agree_plain():
 def test_aom_dav1d_ours_agree_restoration_switchable():
     """SWITCHABLE loop restoration with Wiener + SGR + NONE units:
     both decoders and our apply_restoration agree bit-exactly."""
-    from oavif_tpu.av1.restoration import apply_restoration, count_units, \
+    from oavif_jax.av1.restoration import apply_restoration, count_units, \
         unit_size
 
     h, w = 160, 192

@@ -8,21 +8,21 @@ lossy encode)."""
 import numpy as np
 import pytest
 
-from oavif_tpu.av1.cdef import cdef_frame
-from oavif_tpu.av1.encode import _filter_level
-from oavif_tpu.av1.frame import encode_frame_planes
-from oavif_tpu.av1.loopfilter import loop_filter_frame
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import (
+from oavif_jax.av1.cdef import cdef_frame
+from oavif_jax.av1.encode import _filter_level
+from oavif_jax.av1.frame import encode_frame_planes
+from oavif_jax.av1.loopfilter import loop_filter_frame
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import (
     FrameConfig,
     SequenceConfig,
     assemble_av1_stream,
 )
-from oavif_tpu.av1.yuv import rgb_to_yuv444
+from oavif_jax.av1.yuv import rgb_to_yuv444
 
 
 def _roundtrip(img8, qindex, strengths, damping, bd=8):
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     h, w = img8.shape[:2]
     if bd == 10:
@@ -94,7 +94,7 @@ def test_cdef_stream_decodes_bit_exact(kind, h, w, qindex, strengths,
 
 def test_cdef_c_matches_python():
     """The C fast path and the Python reference produce identical planes."""
-    import oavif_tpu.av1.entropy.fast as fast
+    import oavif_jax.av1.entropy.fast as fast
 
     rng = np.random.default_rng(3)
     for _ in range(4):
@@ -124,7 +124,7 @@ def test_cdef_search_prefers_off_on_noise_and_on_for_gradients():
     """The encoder-side SSE search matches the perceptual preference:
     off for pure noise (filtering destroys real detail), on for smooth
     gradients at coarse quantization (removes ringing)."""
-    from oavif_tpu.av1.encode import _pick_cdef
+    from oavif_jax.av1.encode import _pick_cdef
 
     h = w = 128
     for kind, expect_on in (("noise", False), ("grad", True)):
@@ -144,11 +144,11 @@ def test_product_path_cdef_on_recon_matches_decoder():
     """Full encode_avif_with_recon on gradient content (where the search
     enables CDEF): the returned recon must equal the independent decoder's
     output (the in-loop scoring contract)."""
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions
 
     h = w = 192
     img = _img("grad", h, w, 9)
@@ -157,11 +157,11 @@ def test_product_path_cdef_on_recon_matches_decoder():
                  w=w, h=h, q=55)
     data, recon_rgb = encode_avif_with_recon(ctx)
     # confirm the stream really signals CDEF with nonzero strengths
-    from oavif_tpu.av1.frame import encode_frame_planes
-    from oavif_tpu.av1.loopfilter import loop_filter_frame
-    from oavif_tpu.av1.encode import _filter_level, _pick_cdef
-    from oavif_tpu.av1.consts import quality_to_qindex
-    from oavif_tpu.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
+    from oavif_jax.av1.frame import encode_frame_planes
+    from oavif_jax.av1.loopfilter import loop_filter_frame
+    from oavif_jax.av1.encode import _filter_level, _pick_cdef
+    from oavif_jax.av1.consts import quality_to_qindex
+    from oavif_jax.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
 
     qi = quality_to_qindex(55)
     pl = rgb_to_yuv444(img)

@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from oavif_tpu.cli import run
+from oavif_jax.cli import run
 
 
 @pytest.fixture(autouse=True)
 def _oracle_backend(monkeypatch):
-    monkeypatch.setenv("OAVIF_TPU_BACKEND", "oracle")
+    monkeypatch.setenv("OAVIF_BACKEND", "oracle")
 
 
 def _write_png(tmp_path, arr, name="in.png"):
@@ -28,7 +28,7 @@ def test_help_exits_zero(capsys):
 
 def test_version_exits_zero(capsys):
     assert run(["-v"]) == 0
-    assert "oavif-tpu" in capsys.readouterr().err
+    assert "oavif-jax" in capsys.readouterr().err
 
 
 def test_missing_files_is_error():
@@ -62,10 +62,10 @@ def test_tune_modes_change_rate_allocation(tmp_path, test_rgb8):
     """--tune is live: ssim keeps chroma at the base quantizer while
     iq/ssimulacra2 apply the chroma delta-q (different streams)."""
     import numpy as np
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions, TuneMode
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions, TuneMode
 
     h, w = test_rgb8.shape[:2]
     outs = {}
@@ -81,3 +81,19 @@ def test_tune_modes_change_rate_allocation(tmp_path, test_rgb8):
     assert outs[TuneMode.SSIM] != outs[TuneMode.IQ]
     # chroma spends more bytes under ssim (no delta) than iq
     assert len(outs[TuneMode.SSIM]) > len(outs[TuneMode.IQ])
+
+
+@pytest.mark.parametrize("name", ["in.jpg", "in.webp", "in.png"])
+def test_missing_pillow_is_a_clean_error(tmp_path, test_rgb8, monkeypatch,
+                                         capsys, name):
+    """Without Pillow, the formats that need it end in "Error: ..." and
+    exit 1, not a traceback."""
+    import sys
+
+    inp = _write_png(tmp_path, test_rgb8, name="src.png")
+    os.rename(inp, tmp_path / name)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert run(["-q", "60", str(tmp_path / name),
+                str(tmp_path / "out.avif")]) == 1
+    err = capsys.readouterr().err
+    assert "Error:" in err and "Pillow" in err

@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from oavif_tpu.av1 import frame as frame_mod
-from oavif_tpu.av1.encode import encode_avif_with_recon
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
-from oavif_tpu.backend import EncCtx
-from oavif_tpu.io.image import Image
-from oavif_tpu.options import EncOptions
+from oavif_jax.av1 import frame as frame_mod
+from oavif_jax.av1.encode import encode_avif_with_recon
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.backend import EncCtx
+from oavif_jax.io.image import Image
+from oavif_jax.options import EncOptions
 
 
 def _encode(rgb, q=60, speed=9):
@@ -57,9 +57,9 @@ def test_tx_split_streams_decode_exact():
     agrees (tx_depth ctx, per-txb prediction edges, sub-txb skip ctx,
     and the tx-aware loop filter are all load-bearing here). The RGB
     window allows the usual ±1 conversion wobble; YUV is bit-exact."""
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     d_rng = np.random.default_rng(77)
     h, w = 120, 152
@@ -125,7 +125,7 @@ def test_quality_ordering(test_rgb8):
 def test_single_coefficient_probes_bit_exact():
     """Decoder recon equals ours for crafted coefficient patterns (the
     transform/dequant bit-exactness anchor)."""
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     planes = [np.full((32, 32), 128, np.int32) for _ in range(3)]
     orig = frame_mod.TileEncoder._quantize
@@ -164,7 +164,7 @@ def test_single_coefficient_probes_bit_exact():
 
 
 def test_system_decoder_agrees(test_rgb8):
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     data, _ = _encode(test_rgb8, q=70)
     yuv, depth, _ = decode_to_yuv(data)
@@ -173,27 +173,27 @@ def test_system_decoder_agrees(test_rgb8):
 
 
 def test_tenbit_roundtrip(test_rgb8):
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.options import EncOptions
 
     h, w = test_rgb8.shape[:2]
     img = Image(width=w, height=h, channels=3, hbd=False, data=test_rgb8)
     ctx = EncCtx(o=EncOptions(tenbit=True), src=img, rgb=test_rgb8, w=w, h=h, q=60)
     data, recon = encode_avif_with_recon(ctx)
     # the strict check: decoder YUV planes are bit-exact with our recon
-    from oavif_tpu.av1.consts import quality_to_qindex
-    from oavif_tpu.av1.encode import _depth_convert
-    from oavif_tpu.av1.frame import encode_frame_planes
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.consts import quality_to_qindex
+    from oavif_jax.av1.encode import _depth_convert
+    from oavif_jax.av1.frame import encode_frame_planes
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     planes, depth, _ = decode_to_yuv(data)
     assert depth == 10
-    from oavif_tpu.av1.encode import _filter_level
-    from oavif_tpu.av1.loopfilter import loop_filter_frame
+    from oavif_jax.av1.encode import _filter_level
+    from oavif_jax.av1.loopfilter import loop_filter_frame
 
     qi = quality_to_qindex(60)
     pl = rgb_to_yuv444(_depth_convert(test_rgb8, False, 10), bitdepth=10)
-    from oavif_tpu.av1.encode import _chroma_delta_q
+    from oavif_jax.av1.encode import _chroma_delta_q
     _, ours, blocks = encode_frame_planes(
         pl, qi, 10, 9, u_ac_delta_q=_chroma_delta_q(qi, "iq", pl, 10))
     flv = _filter_level(qi)
@@ -201,8 +201,8 @@ def test_tenbit_roundtrip(test_rgb8):
     if flv:
         loop_filter_frame(ours, blocks, (flv,) * 4, bitdepth=10,
                           visible=(hh, ww))
-    from oavif_tpu.av1.cdef import cdef_frame
-    from oavif_tpu.av1.encode import _pick_cdef
+    from oavif_jax.av1.cdef import cdef_frame
+    from oavif_jax.av1.encode import _pick_cdef
 
     st, damp = _pick_cdef(pl, ours, blocks, qi, 10, (hh, ww))
     if any(st):
@@ -218,7 +218,7 @@ def test_tenbit_roundtrip(test_rgb8):
 def test_alpha_item_roundtrip(test_rgb8):
     import io
 
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.options import EncOptions
 
     h, w = test_rgb8.shape[:2]
     a = np.linspace(30, 250, w, dtype=np.uint8)[None, :].repeat(h, 0)
@@ -276,7 +276,7 @@ def test_tiled_threads_bitstream_identical(test_rgb8):
 
 
 def test_tile_grid_spec_counts():
-    from oavif_tpu.av1.obu import tile_grid
+    from oavif_jax.av1.obu import tile_grid
 
     # 5 SBs across, log2=2 → tile width ceil(5/4)=2 → 3 tiles (spec loop)
     cols, rows = tile_grid(5 * 64, 64, 2, 0)
@@ -287,9 +287,9 @@ def test_tile_grid_spec_counts():
 def test_native_tile_encoder_matches_python_reference(test_rgb8):
     """The C tile encoder (oav1tile.c) must emit the identical bitstream
     and reconstruction as the Python reference TileEncoder."""
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     planes = rgb_to_yuv444(test_rgb8, bitdepth=8)
     native = tile_encode_native([p.copy() for p in planes], 80, 8, 9)
@@ -304,8 +304,8 @@ def test_native_tile_encoder_matches_python_reference(test_rgb8):
 
 
 def test_native_tile_encoder_odd_sizes_and_10bit():
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.entropy.fast import tile_encode_native
 
     rng = np.random.default_rng(11)
     for (h, w, bd) in [(96, 130, 8), (64, 64, 10), (40, 72, 8)]:
@@ -376,10 +376,10 @@ def test_planner_streams_decode_exact(test_rgb8):
     streams (the plan pins decisions, not reconstruction)."""
     import numpy as np
 
-    from oavif_tpu.av1.encode_tpu import FramePlanner
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.device_plan import FramePlanner
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     rgb = np.tile(test_rgb8, (2, 2, 1))[:128, :192]  # 2x3 SBs
     planes = [p.astype(np.int32) for p in rgb_to_yuv444(rgb, 8)]
@@ -405,15 +405,15 @@ def test_rect_horz_32x16_stream_decodes_exact():
     than the square schedule; dav1d-disasm-verified) — and the
     independent decoder must agree bit-exactly with the encoder's
     reconstruction."""
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig,
         SequenceConfig,
         assemble_av1_stream,
     )
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     rng2 = np.random.default_rng(123)
     h, w = 64, 128
@@ -449,22 +449,22 @@ def test_rect_rd_full_pipeline_decodes_exact(monkeypatch):
     skip maps, mux — must decode bit-exactly via dav1d."""
     import os
 
-    from oavif_tpu.av1.cdef import cdef_frame
-    from oavif_tpu.av1.consts import quality_to_qindex
-    from oavif_tpu.av1.encode import (
+    from oavif_jax.av1.cdef import cdef_frame
+    from oavif_jax.av1.consts import quality_to_qindex
+    from oavif_jax.av1.encode import (
         _chroma_delta_q, _filter_level, _pick_cdef,
     )
-    from oavif_tpu.av1.frame import TileEncoder, encode_frame_planes
-    from oavif_tpu.av1.loopfilter import loop_filter_frame
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.frame import TileEncoder, encode_frame_planes
+    from oavif_jax.av1.loopfilter import loop_filter_frame
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     monkeypatch.setenv("OAVIF_PY_TILE", "1")
     monkeypatch.setattr(TileEncoder, "_enable_rect", True)
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions
 
     rng2 = np.random.default_rng(3)
     h, w = 192, 160
@@ -501,9 +501,9 @@ def test_rect_c_python_byte_parity():
     """The C tile encoder mirrors the Python rect path byte-for-byte:
     same partition duel, same mode ladder, same rect RDOQ, same CfL
     decision, same symbols."""
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     rng2 = np.random.default_rng(17)
     h, w = 192, 128
@@ -539,14 +539,14 @@ def test_rect_syntax_decodes_exact_levels():
     multi-coefficient txbs decode the exact same LEVELS with recon within
     rounding distance (the decoder's exact rect inverse rounding sequence is the one
     remaining open item, tracked by the xfail test above)."""
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig,
         SequenceConfig,
         assemble_av1_stream,
     )
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     h, w = 32, 64
     # DC-only: constant planes -> bit-exact round trip

@@ -16,8 +16,8 @@ import os
 import numpy as np
 import pytest
 
-from oavif_tpu.av1 import frame as F
-from oavif_tpu.av1.yuv import rgb_to_yuv444
+from oavif_jax.av1 import frame as F
+from oavif_jax.av1.yuv import rgb_to_yuv444
 
 
 @pytest.fixture
@@ -40,7 +40,7 @@ def _enc(planes, q, py=False):
         os.environ.pop("OAVIF_PY_TILE", None)
     try:
         p, r, b = F.encode_frame_planes(
-            planes, q, 8, 9, use_tpu_planner=True, u_ac_delta_q=32
+            planes, q, 8, 9, use_device_planner=True, u_ac_delta_q=32
         )
     finally:
         os.environ.pop("OAVIF_PY_TILE", None)
@@ -53,7 +53,7 @@ def _reset():
 
 
 def test_replay_c_py_parity(planes):
-    from oavif_tpu.av1.entropy.fast import get_lib
+    from oavif_jax.av1.entropy.fast import get_lib
 
     if get_lib() is None:
         pytest.skip("native library unavailable")
@@ -68,13 +68,13 @@ def test_replay_c_py_parity(planes):
 
 
 def test_replay_deterministic_and_conformant(planes):
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig,
         SequenceConfig,
         assemble_av1_stream,
     )
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     _reset()
     _enc(planes, 40)
@@ -111,19 +111,19 @@ def test_speed_ladder_c_py_parity(planes, speed):
     """Every speed preset's knob set must stay byte-identical between the
     C and Python encoders (the ladder touches ADST gates, split trials,
     RDOQ, CfL breadth, and decision reuse)."""
-    from oavif_tpu.av1.entropy.fast import get_lib
+    from oavif_jax.av1.entropy.fast import get_lib
 
     if get_lib() is None:
         pytest.skip("native library unavailable")
     _reset()
     os.environ.pop("OAVIF_PY_TILE", None)
     c_p, _, _ = F.encode_frame_planes(planes, 40, 8, speed,
-                                      use_tpu_planner=True, u_ac_delta_q=32)
+                                      use_device_planner=True, u_ac_delta_q=32)
     _reset()
     os.environ["OAVIF_PY_TILE"] = "1"
     try:
         p_p, _, _ = F.encode_frame_planes(planes, 40, 8, speed,
-                                          use_tpu_planner=True,
+                                          use_device_planner=True,
                                           u_ac_delta_q=32)
     finally:
         os.environ.pop("OAVIF_PY_TILE", None)

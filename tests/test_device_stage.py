@@ -24,11 +24,11 @@ def test_device_levels_match_host_quantize():
     """Interior planned blocks' device levels equal a float64 host
     recompute of the same open-loop round-half quantization (up to the
     f32-vs-f64 coefficient rounding at exact .5 boundaries)."""
-    from oavif_tpu.av1.frame import _attach_device_levels, _get_planner
-    from oavif_tpu.av1.intra import build_edges, predict
-    from oavif_tpu.av1.tables import ac_q, dc_q
-    from oavif_tpu.av1.transform import fwd_matrices
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.frame import _attach_device_levels, _get_planner
+    from oavif_jax.av1.intra import build_edges, predict
+    from oavif_jax.av1.tables import ac_q, dc_q
+    from oavif_jax.av1.transform import fwd_matrices
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     rgb = _fractal(256, 256)
     pl = [p.astype(np.int32) for p in rgb_to_yuv444(rgb, 8)]
@@ -68,13 +68,13 @@ def test_device_levels_stream_conformance(monkeypatch):
     monkeypatch.setenv("OAVIF_PY_TILE", "1")
     monkeypatch.setenv("OAVIF_DEVICE_LEVELS", "1")
     monkeypatch.setenv("OAVIF_DEC_REUSE", "0")
-    import oavif_tpu.av1.frame as F
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    import oavif_jax.av1.frame as F
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig, SequenceConfig, assemble_av1_stream,
     )
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     rgb = _fractal(256, 256, seed=11)
     h, w = rgb.shape[:2]
@@ -109,9 +109,9 @@ def test_device_levels_q_batch():
     """The q-batch axis (batched speculative TQ, BASELINE config 2): one
     call returns per-quantizer levels; each slice equals the single-q
     result."""
-    from oavif_tpu.av1.device_stage import DeviceLevels
-    from oavif_tpu.av1.frame import _get_planner
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.device_stage import DeviceLevels
+    from oavif_jax.av1.frame import _get_planner
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     rgb = _fractal(256, 256, seed=13)
     pl = [p.astype(np.int32) for p in rgb_to_yuv444(rgb, 8)]

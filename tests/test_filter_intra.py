@@ -8,12 +8,12 @@ import pytest
 
 def _roundtrip(planes, qindex=60, speed=9, force_fi=None, screen=False,
                bd=8):
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig, SequenceConfig, assemble_av1_stream,
     )
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     h, w = planes[0].shape
     te = TileEncoder([p.copy() for p in planes], qindex, bd, speed,
@@ -114,7 +114,7 @@ def test_screen_tools_coexistence():
 def test_rect_blocks_code_decline_flag():
     """Rect DC blocks <= 32 are filter-intra-eligible: the decline flag
     must code (bsize rows 7/8) or dav1d desyncs."""
-    from oavif_tpu.av1 import frame as fm
+    from oavif_jax.av1 import frame as fm
 
     yy, xx = np.mgrid[0:64, 0:64]
     # horizontal stripes force HORZ rect wins
@@ -151,8 +151,8 @@ def test_c_python_byte_parity():
     the SSD-screened duel, the use/mode symbols, the
     Filter_Intra_Mode_To_Intra_Dir tx-type rows, and the decline flags
     on eligible non-filter blocks."""
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
 
     yy, xx = np.mgrid[0:128, 0:128].astype(np.float64)
     g = np.clip(
@@ -178,8 +178,8 @@ def test_c_python_byte_parity():
 def test_replay_cycle_parity():
     """Record/replay with filter-intra modes in the record: the replayed
     probe (different q) stays byte-identical between C and Python."""
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
 
     yy, xx = np.mgrid[0:96, 0:96].astype(np.float64)
     g = np.clip(60 + 90 * ((xx + yy) / 190.0) ** 1.5, 0, 255)
@@ -204,7 +204,7 @@ def test_replay_cycle_parity():
 def test_predictor_unit_dc_gain():
     """Every tap row sums to 16 (unit DC gain): a flat edge predicts
     flat for all 5 modes at both depths."""
-    from oavif_tpu.av1.intra import predict_filter_intra
+    from oavif_jax.av1.intra import predict_filter_intra
 
     for bd in (8, 10):
         v = 131 if bd == 8 else 517

@@ -65,10 +65,10 @@ def _restore_idtx_env():
 def test_fuzz_product_decode_equals_recon(case):
     import types as pytypes
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.av1.yuv import yuv444_to_rgb
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
-    from oavif_tpu.options import EncOptions, TuneMode
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.av1.yuv import yuv444_to_rgb
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.options import EncOptions, TuneMode
 
     rng = np.random.default_rng(1000 + case)
     h = int(rng.choice([96, 128, 152, 200, 256]))

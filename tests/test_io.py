@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from oavif_tpu.io.image import (
+from oavif_jax.io.image import (
     Image,
     decode_avif_to_rgb8,
     load_image,
@@ -145,8 +145,8 @@ def test_native_yuv_conversions_match_numpy():
     order, encoder input freedom)."""
     import numpy as np
 
-    import oavif_tpu.av1.entropy.fast as fast
-    from oavif_tpu.av1 import yuv as yuv_mod
+    import oavif_jax.av1.entropy.fast as fast
+    from oavif_jax.av1 import yuv as yuv_mod
 
     if fast.get_lib() is None:
         import pytest
@@ -181,10 +181,10 @@ def test_avif_input_preserves_high_bit_depth(tmp_path):
     left-shifts HBD to 16) instead of Pillow's 8-bit downconvert."""
     import numpy as np
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.io.image import Image, load_image
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.io.image import Image, load_image
+    from oavif_jax.options import EncOptions
 
     rng = np.random.default_rng(0)
     rgb = np.clip(

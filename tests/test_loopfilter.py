@@ -6,15 +6,15 @@ dav1d; this guards them)."""
 import numpy as np
 import pytest
 
-from oavif_tpu.av1.consts import quality_to_qindex
-from oavif_tpu.av1.encode import _filter_level, encode_avif_with_recon
-from oavif_tpu.av1.frame import encode_frame_planes
-from oavif_tpu.av1.loopfilter import loop_filter_frame
-from oavif_tpu.av1.yuv import rgb_to_yuv444
-from oavif_tpu.backend import EncCtx
-from oavif_tpu.io.avif_ctypes import decode_to_yuv
-from oavif_tpu.io.image import Image
-from oavif_tpu.options import EncOptions
+from oavif_jax.av1.consts import quality_to_qindex
+from oavif_jax.av1.encode import _filter_level, encode_avif_with_recon
+from oavif_jax.av1.frame import encode_frame_planes
+from oavif_jax.av1.loopfilter import loop_filter_frame
+from oavif_jax.av1.yuv import rgb_to_yuv444
+from oavif_jax.backend import EncCtx
+from oavif_jax.io.avif_ctypes import decode_to_yuv
+from oavif_jax.io.image import Image
+from oavif_jax.options import EncOptions
 
 
 def _imgs():
@@ -42,15 +42,15 @@ def test_loop_filtered_recon_matches_decoder(q):
         planes, _, _ = decode_to_yuv(data)
         qi = quality_to_qindex(q)
         pl = rgb_to_yuv444(img, bitdepth=8)
-        from oavif_tpu.av1.encode import _chroma_delta_q
+        from oavif_jax.av1.encode import _chroma_delta_q
         _, ours, blocks = encode_frame_planes(
             pl, qi, 8, 9, u_ac_delta_q=_chroma_delta_q(qi, "iq", pl, 8))
         flv = _filter_level(qi)
         assert flv > 0
         loop_filter_frame(ours, blocks, (flv,) * 4, bitdepth=8,
                           visible=(h, w))
-        from oavif_tpu.av1.cdef import cdef_frame
-        from oavif_tpu.av1.encode import _pick_cdef
+        from oavif_jax.av1.cdef import cdef_frame
+        from oavif_jax.av1.encode import _pick_cdef
 
         st, damp = _pick_cdef(pl, ours, blocks, qi, 8, (h, w))
         if any(st):

@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from oavif_tpu.av1.encode import encode_avif_with_recon
-from oavif_tpu.av1.transform import fwd_wht4x4, inv_wht4x4
-from oavif_tpu.av1.yuv import rgb_to_yuv444
-from oavif_tpu.backend import EncCtx
-from oavif_tpu.io.avif_ctypes import decode_to_yuv
-from oavif_tpu.io.image import Image
-from oavif_tpu.options import EncOptions
+from oavif_jax.av1.encode import encode_avif_with_recon
+from oavif_jax.av1.transform import fwd_wht4x4, inv_wht4x4
+from oavif_jax.av1.yuv import rgb_to_yuv444
+from oavif_jax.backend import EncCtx
+from oavif_jax.io.avif_ctypes import decode_to_yuv
+from oavif_jax.io.image import Image
+from oavif_jax.options import EncOptions
 
 
 def test_wht_roundtrip_exact(rng):

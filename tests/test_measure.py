@@ -37,7 +37,7 @@ def test_corpus_run_inprocess(corpus, tmp_path):
     out_csv = tmp_path / "out.csv"
     r = subprocess.run(
         [sys.executable, str(SCRIPT), str(corpus),
-         "module:oavif_tpu -q 60", str(out_csv)],
+         "module:oavif_jax -q 60", str(out_csv)],
         capture_output=True, text=True, timeout=300,
         env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
@@ -55,7 +55,7 @@ def test_corpus_sharding(corpus, tmp_path):
         out_csv = tmp_path / f"shard{k}.csv"
         r = subprocess.run(
             [sys.executable, str(SCRIPT), str(corpus),
-             "module:oavif_tpu -q 60", str(out_csv), "--shard", f"{k}/2"],
+             "module:oavif_jax -q 60", str(out_csv), "--shard", f"{k}/2"],
             capture_output=True, text=True, timeout=300,
             env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
         )
@@ -80,13 +80,13 @@ def test_corpus_resume(corpus, tmp_path):
     env = {**__import__("os").environ, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(
         [sys.executable, str(SCRIPT), str(corpus),
-         "module:oavif_tpu -q 60", str(out_csv)],
+         "module:oavif_jax -q 60", str(out_csv)],
         capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0
     rows1 = list(csv.DictReader(open(out_csv)))
     r = subprocess.run(
         [sys.executable, str(SCRIPT), str(corpus),
-         "module:oavif_tpu -q 60", str(out_csv), "--resume"],
+         "module:oavif_jax -q 60", str(out_csv), "--resume"],
         capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0
     assert "3 done, 0 remaining" in r.stderr
@@ -95,7 +95,7 @@ def test_corpus_resume(corpus, tmp_path):
 
 
 def test_corpus_run_pipelined_window(corpus, tmp_path):
-    """--window N routes module:oavif_tpu through tq/pipeline.py; rows
+    """--window N routes module:oavif_jax through tq/pipeline.py; rows
     must match the sequential in-process run (same searches, same
     bytes), with per-image time = that image's own host encode."""
     env = {**__import__("os").environ, "JAX_PLATFORMS": "cpu",
@@ -104,7 +104,7 @@ def test_corpus_run_pipelined_window(corpus, tmp_path):
     for out_csv, extra in ((seq_csv, []), (pipe_csv, ["--window", "3"])):
         r = subprocess.run(
             [sys.executable, str(SCRIPT), str(corpus),
-             "module:oavif_tpu -t 70", str(out_csv)] + extra,
+             "module:oavif_jax -t 70", str(out_csv)] + extra,
             capture_output=True, text=True, timeout=300, env=env,
         )
         assert r.returncode == 0, r.stderr[-500:]

@@ -13,11 +13,11 @@ sources vs the upstream scale.
 import numpy as np
 import pytest
 
-from oavif_tpu.metric import (
+from oavif_jax.metric import (
     compute_ssimulacra2,
     compute_ssimulacra2_batch,
 )
-from oavif_tpu.metric.ssimulacra2 import WEIGHTS, _num_scales
+from oavif_jax.metric.ssimulacra2 import WEIGHTS, _num_scales
 
 
 def test_identity_scores_100(test_rgb8):
@@ -157,7 +157,7 @@ def test_native_matches_jax(test_rgb8, rng):
     """The host-native ssimu2.c and the JAX implementation are independent
     realizations of the same spec; they must agree within epsilon on
     identity, mild, and severe distortion (cross-validation of both)."""
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
+    from oavif_jax.metric.native import compute_ssimulacra2_native
 
     if compute_ssimulacra2_native(test_rgb8, test_rgb8) is None:
         pytest.skip("native library unavailable")
@@ -175,7 +175,7 @@ def test_native_matches_jax(test_rgb8, rng):
 
 def test_native_ref_cache_consistency(test_rgb8, rng):
     """Scoring through the cached ref-context equals a fresh computation."""
-    from oavif_tpu.metric import native
+    from oavif_jax.metric import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -188,8 +188,8 @@ def test_native_ref_cache_consistency(test_rgb8, rng):
 
 
 def test_batch_auto_matches_single(test_rgb8, rng):
-    from oavif_tpu.metric.native import score_batch_auto, metric_impl
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
+    from oavif_jax.metric.native import score_batch_auto, metric_impl
+    from oavif_jax.metric.native import compute_ssimulacra2_native
 
     if metric_impl() != "c":
         pytest.skip("native not selected")
@@ -218,7 +218,7 @@ def test_blur_sensitivity_bound(test_rgb8, rng):
     import importlib
     import os
 
-    import oavif_tpu.metric.ssimulacra2 as M
+    import oavif_jax.metric.ssimulacra2 as M
 
     dist = np.clip(
         test_rgb8.astype(np.float64) + rng.normal(0, 5, test_rgb8.shape),

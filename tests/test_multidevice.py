@@ -25,13 +25,8 @@ def test_sharded_plans_equal_single_device():
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
 
-    try:
-        from jax.experimental.shard_map import shard_map
-    except ImportError:
-        from jax.sharding import shard_map
-
-    from oavif_tpu.av1 import encode_tpu as ET
-    from oavif_tpu.av1.tables import ac_q
+    from oavif_jax.av1 import device_plan as ET
+    from oavif_jax.av1.tables import ac_q
 
     rng = np.random.default_rng(5)
     t_dim = 4
@@ -61,9 +56,9 @@ def test_sharded_plans_equal_single_device():
 
     packed = np.asarray(
         jax.jit(
-            shard_map(
+            jax.shard_map(
                 plan_tile, mesh=mesh, in_specs=(P("tile"),),
-                out_specs=P("tile"), check_rep=False,
+                out_specs=P("tile"), check_vma=False,
             )
         )(tiles)
     )
@@ -85,8 +80,8 @@ def test_sharded_metric_matches_single():
         import pytest
 
         pytest.skip("needs 8 host devices")
-    from oavif_tpu.metric import compute_ssimulacra2
-    from oavif_tpu.metric.sharded import compute_ssimulacra2_sharded
+    from oavif_jax.metric import compute_ssimulacra2
+    from oavif_jax.metric.sharded import compute_ssimulacra2_sharded
 
     rng = np.random.default_rng(11)
     img = np.clip(
@@ -111,8 +106,8 @@ def test_planner_shape_bucketing_plan_equality():
     import jax.numpy as jnp
     import numpy as np
 
-    from oavif_tpu.av1 import encode_tpu as ET
-    from oavif_tpu.av1.tables import ac_q
+    from oavif_jax.av1 import device_plan as ET
+    from oavif_jax.av1.tables import ac_q
 
     rng = np.random.default_rng(21)
     h, w = 320, 448  # 5x7 SBs -> bucketed to 8x8
@@ -147,15 +142,15 @@ def test_planner_shape_bucketing_plan_equality():
 def test_sharded_loop_restoration_halo_exact():
     """Width-sharded Wiener restoration: the 7-tap horizontal support
     crosses shard boundaries via ppermute halos; the output must equal
-    the host filter bit-for-bit (encode-side ICI, SURVEY §2c)."""
+    the host filter bit-for-bit (encode-side collective, SURVEY §2c)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
     from jax.sharding import Mesh
 
-    from oavif_tpu.av1.restoration import (
+    from oavif_jax.av1.restoration import (
         apply_wiener, count_units, unit_size,
     )
-    from oavif_tpu.av1.restoration_sharded import apply_wiener_sharded
+    from oavif_jax.av1.restoration_sharded import apply_wiener_sharded
 
     rng = np.random.default_rng(7)
     h, w = 200, 512

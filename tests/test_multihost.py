@@ -56,7 +56,7 @@ def test_two_process_shard_and_merge(tmp_path):
     # a tiny wrapper binary path: measure.py shells out to the oavif CLI
     oavif = tmp_path / "oavif"
     oavif.write_text(
-        "#!/bin/sh\nexec %s -m oavif_tpu.cli \"$@\"\n" % sys.executable
+        "#!/bin/sh\nexec %s -m oavif_jax.cli \"$@\"\n" % sys.executable
     )
     oavif.chmod(0o755)
 
@@ -66,8 +66,7 @@ def test_two_process_shard_and_merge(tmp_path):
     coord = f"127.0.0.1:{port}"
 
     env = dict(os.environ)
-    env["OAVIF_TPU_PLANNER"] = "0"  # tiny images; no device dispatch
-    env["OAVIF_TPU_FORCE_CPU"] = "1"
+    env["OAVIF_DEVICE_PLANNER"] = "0"  # tiny images; no device dispatch
     env["PYTHONPATH"] = f"{repo}:" + env.get("PYTHONPATH", "")
     csvs = [tmp_path / f"shard{k}.csv" for k in (0, 1)]
     procs = [

@@ -2,7 +2,7 @@
 
 import pytest
 
-from oavif_tpu.options import EncOptions, OptionError, TuneMode, parse_args
+from oavif_jax.options import EncOptions, OptionError, TuneMode, parse_args
 
 
 def test_defaults_match_reference_struct():

@@ -7,13 +7,13 @@ import pytest
 
 
 def _roundtrip(rgb, qindex=60, screen_tools=True, force=False):
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig, SequenceConfig, assemble_av1_stream,
     )
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     h, w = rgb.shape[:2]
     planes = [p.astype(np.int32) for p in rgb_to_yuv444(rgb, 8)]
@@ -96,8 +96,8 @@ def test_screen_frames_decline_flags_exact():
     used, nbytes, _ = _roundtrip(rgb, screen_tools=True)
 
     # suppressed-candidate twin (still screen_tools: flags still code)
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     planes = [p.astype(np.int32) for p in rgb_to_yuv444(rgb, 8)]
     te = TileEncoder([p.copy() for p in planes], 60, 8, 9,
@@ -110,9 +110,9 @@ def test_palette_c_python_byte_parity():
     """The C tile encoder mirrors the palette path byte-for-byte: the
     duel, cache reuse, color deltas, index-map contexts and the decline
     flags on non-palette/rect blocks."""
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     rng = np.random.default_rng(3)
     vals = np.array([20, 80, 150, 220])
@@ -131,7 +131,7 @@ def test_palette_c_python_byte_parity():
 
 
 def test_screen_content_detector():
-    from oavif_tpu.av1.encode import _detect_screen_content
+    from oavif_jax.av1.encode import _detect_screen_content
 
     yy, xx = np.mgrid[0:128, 0:128]
     flat = np.where((xx // 16) % 2 == 0, 40, 200).astype(np.uint8)
@@ -162,18 +162,18 @@ def test_lossy_palette_10bit_parity_and_decode():
     depth-converted text-on-gradient frame: the C and Python coders must
     agree byte-for-byte, at least one block must actually choose the
     lossy candidate, and the stream must decode bit-exactly."""
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig, SequenceConfig, assemble_av1_stream,
     )
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.yuv import rgb_to_yuv444
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     rgb8 = _text_on_gradient_rgb()
     # the product's 8->10-bit depth conversion (io.zig formulas)
-    from oavif_tpu.av1.encode import _depth_convert
+    from oavif_jax.av1.encode import _depth_convert
 
     rgb10 = _depth_convert(rgb8, False, 10)
     planes = [p.astype(np.int32) for p in rgb_to_yuv444(rgb10, 10)]
@@ -221,12 +221,12 @@ def test_palette_color_delta_shrink_pow2_boundary():
     decode==recon via dav1d AND libaom."""
     import numpy as np
 
-    from oavif_tpu.av1.frame import TileEncoder
-    from oavif_tpu.av1.mux import mux_avif
-    from oavif_tpu.av1.obu import (
+    from oavif_jax.av1.frame import TileEncoder
+    from oavif_jax.av1.mux import mux_avif
+    from oavif_jax.av1.obu import (
         FrameConfig, SequenceConfig, assemble_av1_stream,
     )
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     rr, cc = np.mgrid[0:16, 0:16]
     for colors in ([0, 239, 243], [0, 223, 230],
@@ -261,7 +261,7 @@ def test_palette_color_delta_shrink_pow2_boundary():
         np.testing.assert_array_equal(
             np.asarray(te.recon[0])[:16, :16], yuv[0], err_msg=str(colors))
         try:
-            from oavif_tpu.io.aom_ctypes import decode_obu_to_yuv
+            from oavif_jax.io.aom_ctypes import decode_obu_to_yuv
 
             ayuv = decode_obu_to_yuv(stream)[0]
             np.testing.assert_array_equal(

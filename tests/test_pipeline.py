@@ -11,12 +11,12 @@ import os
 import numpy as np
 import pytest
 
-from oavif_tpu.backend import EncCtx
-from oavif_tpu.backend.tpu import TpuBackend
-from oavif_tpu.io.image import Image
-from oavif_tpu.options import EncOptions
-from oavif_tpu.tq.driver import search_encode
-from oavif_tpu.tq.pipeline import search_encode_corpus
+from oavif_jax.backend import EncCtx
+from oavif_jax.backend.oavif import OavifBackend
+from oavif_jax.io.image import Image
+from oavif_jax.options import EncOptions
+from oavif_jax.tq.driver import search_encode
+from oavif_jax.tq.pipeline import search_encode_corpus
 
 
 def _mk_ctx(img, **opt):
@@ -60,7 +60,7 @@ def _force_c_scorer(monkeypatch):
 
 def test_pipeline_matches_sequential_driver():
     imgs = _imgs()
-    be = TpuBackend()
+    be = OavifBackend()
     seq = []
     for img in imgs:
         r, data = search_encode(_mk_ctx(img), be)
@@ -73,7 +73,7 @@ def test_pipeline_matches_sequential_driver():
 
 
 def test_pipeline_single_image_and_empty():
-    be = TpuBackend()
+    be = OavifBackend()
     assert search_encode_corpus([], be) == []
     img = _imgs()[0]
     out = search_encode_corpus([_mk_ctx(img)], be)
@@ -85,7 +85,7 @@ def test_pipeline_single_image_and_empty():
 
 def test_pipeline_deterministic_across_runs():
     imgs = _imgs()
-    be = TpuBackend()
+    be = OavifBackend()
     a = search_encode_corpus([_mk_ctx(i) for i in imgs], be)
     b = search_encode_corpus([_mk_ctx(i) for i in imgs], be)
     for (ra, da), (rb, db) in zip(a, b):
@@ -95,6 +95,6 @@ def test_pipeline_deterministic_across_runs():
 
 def test_pipeline_respects_max_pass():
     img = _imgs()[0]
-    be = TpuBackend()
+    be = OavifBackend()
     out = search_encode_corpus([_mk_ctx(img, max_pass=1)], be)
     assert out[0][0].num_pass == 1

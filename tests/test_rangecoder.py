@@ -8,7 +8,7 @@ conformance against dav1d is separately anchored by full-bitstream decode
 import numpy as np
 import pytest
 
-from oavif_tpu.av1.entropy import RangeDecoder, RangeEncoder, update_cdf
+from oavif_jax.av1.entropy import RangeDecoder, RangeEncoder, update_cdf
 
 
 def _random_icdf(rng, nsyms):

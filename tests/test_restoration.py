@@ -3,7 +3,7 @@
 Every stream here is crafted through the Python tile coder with an
 explicit LR config, muxed, decoded by the system dav1d (via libavif),
 and compared bit-exactly against our own reconstruction run through
-oavif_tpu.av1.restoration.apply_wiener — the same decode==recon
+oavif_jax.av1.restoration.apply_wiener — the same decode==recon
 invariant the rest of the toolset is held to (SURVEY.md §4a).
 Reference behavior: libaom's loop restoration behind
 avifEncoderAddImage (reference src/io.zig:629-632).
@@ -14,15 +14,15 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from oavif_tpu.av1 import frame as frame_mod
-from oavif_tpu.av1.frame import TileEncoder
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
-from oavif_tpu.av1.restoration import apply_wiener, count_units, unit_size
+from oavif_jax.av1 import frame as frame_mod
+from oavif_jax.av1.frame import TileEncoder
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.av1.restoration import apply_wiener, count_units, unit_size
 
 
 def _dav1d():
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     return decode_to_yuv
 
@@ -47,13 +47,13 @@ def _roundtrip(planes, lr, qindex=60, bitdepth=8, unit_shift=2,
     payload = te.encode()
     recon = [r.copy() for r in te.recon]
     if flv:
-        from oavif_tpu.av1.loopfilter import loop_filter_frame
+        from oavif_jax.av1.loopfilter import loop_filter_frame
 
         loop_filter_frame(recon, te.blocks, (flv, flv, flv, flv),
                           bitdepth=bitdepth, visible=(h, w))
     deblk = [r.copy() for r in recon]
     if cdef is not None:
-        from oavif_tpu.av1.cdef import cdef_frame
+        from oavif_jax.av1.cdef import cdef_frame
 
         cdef_frame(recon, te.blocks, cdef[0], cdef[1], bitdepth)
     out = apply_wiener(recon, deblk, h, w, lr["types"], lr["unit_shift"],
@@ -167,7 +167,7 @@ def test_lr_wiener_10bit_exact():
 def test_lr_c_python_byte_identity():
     """The C tile coder mirrors the LR unit syntax byte-for-byte
     (subexp refs, chroma firstCoeff, unit iteration)."""
-    from oavif_tpu.av1.entropy.fast import get_lib, tile_encode_native
+    from oavif_jax.av1.entropy.fast import get_lib, tile_encode_native
 
     if get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -211,7 +211,7 @@ def test_lr_c_python_byte_identity_mixed_types():
     SWITCHABLE's 3-ary unit type, SGR set/xqd subexp (refs mid
     {-32, 31}, radius-0 ref pinning), Wiener taps — across frame types
     (1, 3, 2) on the three planes."""
-    from oavif_tpu.av1.entropy.fast import get_lib, tile_encode_native
+    from oavif_jax.av1.entropy.fast import get_lib, tile_encode_native
 
     if get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -261,8 +261,8 @@ def test_lr_sgr_product_path_decodes_exact():
     import os
     import types as pytypes
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.av1.yuv import yuv444_to_rgb
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.av1.yuv import yuv444_to_rgb
 
     rng = np.random.default_rng(5)
     x = np.linspace(0, 6, 160)
@@ -274,7 +274,7 @@ def test_lr_sgr_product_path_decodes_exact():
     o_env = os.environ.get("OAVIF_LR")
     os.environ["OAVIF_LR"] = "1"
     try:
-        from oavif_tpu.options import EncOptions
+        from oavif_jax.options import EncOptions
 
         o = EncOptions()
         o.speed = 5
@@ -296,8 +296,8 @@ def test_lr_product_path_decodes_exact():
     import os
     import types as pytypes
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.av1.yuv import yuv444_to_rgb
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.av1.yuv import yuv444_to_rgb
 
     rng = np.random.default_rng(5)
     x = np.linspace(0, 6, 160)
@@ -309,7 +309,7 @@ def test_lr_product_path_decodes_exact():
     o_env = os.environ.get("OAVIF_LR")
     os.environ["OAVIF_LR"] = "1"
     try:
-        from oavif_tpu.options import EncOptions
+        from oavif_jax.options import EncOptions
 
         o = EncOptions()
         o.speed = 6
@@ -326,7 +326,7 @@ def test_lr_product_path_decodes_exact():
 
 
 def _sgr_roundtrip(planes, set_idx, w0, w1, q=60):
-    from oavif_tpu.av1.restoration import apply_sgrproj
+    from oavif_jax.av1.restoration import apply_sgrproj
 
     n_h, n_w = planes[0].shape
     lr = {"types": (3, 0, 0), "unit_shift": 2,
@@ -361,7 +361,7 @@ def test_sgrproj_all_sets_decode_exact():
     rng = np.random.default_rng(3)
     planes = [np.asarray(128 + rng.integers(-60, 60, (48, 48)), np.int32)
               for _ in range(3)]
-    from oavif_tpu.av1.restoration import SGR_PARAMS
+    from oavif_jax.av1.restoration import SGR_PARAMS
 
     for s in range(16):
         r0, _, r1, _ = SGR_PARAMS[s]
@@ -394,7 +394,7 @@ def test_sgrproj_multi_unit_ref_chain_exact():
     subexp refs chain across units (spec: ref takes the coded value;
     radius-0 passes pin 0 / 95) — any ref drift desyncs or shifts the
     decoded weights."""
-    from oavif_tpu.av1.restoration import apply_sgrproj, count_units, \
+    from oavif_jax.av1.restoration import apply_sgrproj, count_units, \
         unit_size
 
     rng = np.random.default_rng(17)
@@ -426,7 +426,7 @@ def test_lr_switchable_mixed_units_decode_exact():
     """SWITCHABLE frame type (coded 1): per-unit restoration type from
     the 3-ary switchable_restore CDF, Wiener and SGR units interleaved
     with NONE, both families' refs chaining — on all three planes."""
-    from oavif_tpu.av1.restoration import apply_restoration, \
+    from oavif_jax.av1.restoration import apply_restoration, \
         count_units, unit_size
 
     rng = np.random.default_rng(11)
@@ -477,7 +477,7 @@ def test_search_restoration_joint_decode_exact():
     quantization-degraded content, the chosen config reduces SSE, and
     the coded stream decodes (dav1d) bit-exactly to apply_restoration's
     output — the product invariant SGRPROJ now meets."""
-    from oavif_tpu.av1.restoration import apply_restoration, \
+    from oavif_jax.av1.restoration import apply_restoration, \
         search_restoration
 
     rng = np.random.default_rng(4)
@@ -518,7 +518,7 @@ def test_lr_search_improves_sse():
     """Encoder-side tap solve: on quantization-degraded content the
     searched Wiener filter must reduce SSE vs the unfiltered recon
     whenever it elects to restore (it restores on this content)."""
-    from oavif_tpu.av1.restoration import search_wiener
+    from oavif_jax.av1.restoration import search_wiener
 
     planes = _noise_planes(128, 128, seed=21, amp=40)
     te = TileEncoder([p.copy() for p in planes], 150, 8, 9)

@@ -21,10 +21,10 @@ def test_reuse_window_cost_bounded():
 
     sys.path.insert(0, ".")
     import bench
-    from oavif_tpu.av1 import encode as E
-    from oavif_tpu.av1 import frame as F
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
+    from oavif_jax.av1 import encode as E
+    from oavif_jax.av1 import frame as F
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.metric.native import compute_ssimulacra2_native
 
     if compute_ssimulacra2_native(
         np.zeros((64, 64, 3), np.uint8), np.zeros((64, 64, 3), np.uint8)
@@ -33,7 +33,7 @@ def test_reuse_window_cost_bounded():
 
         pytest.skip("native metric unavailable")
 
-    tpu = TpuBackend()
+    enc = OavifBackend()
     img = bench._img_fractal(256, 256)
     ctx = bench._make_ctx(img)
     qf, dq = 90, 16
@@ -42,15 +42,15 @@ def test_reuse_window_cost_bounded():
     F._PLANNER_CACHE.clear()
     E._SRC_CACHE.clear()
     ctx.q = qf
-    fresh, rec_f = tpu.encode_with_recon(ctx)
+    fresh, rec_f = enc.encode_with_recon(ctx)
     s_f = compute_ssimulacra2_native(img, rec_f)
 
     F._DEC_CACHE.clear()
     F._PLANNER_CACHE.clear()
     ctx.q = qf - dq
-    tpu.encode_with_recon(ctx)
+    enc.encode_with_recon(ctx)
     ctx.q = qf
-    reuse, rec_r = tpu.encode_with_recon(ctx)
+    reuse, rec_r = enc.encode_with_recon(ctx)
     s_r = compute_ssimulacra2_native(img, rec_r)
 
     db = 100.0 * abs(len(reuse) - len(fresh)) / len(fresh)

@@ -21,13 +21,13 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from oavif_tpu.av1.frame import TileEncoder
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.av1.frame import TileEncoder
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
 
 
 def _roundtrip(planes, q, force_none=False, bd=8):
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
 
     h, w = planes[0].shape
     te = TileEncoder([p.copy() for p in planes], q, bd, 9, sb128=True)
@@ -91,18 +91,18 @@ def test_sb128_loop_filter_and_cdef_exact():
     chroma tx caps at 32, so a 128 block has THREE internal chroma LF
     edges per direction (the 64-block rule hardcoded one — regression
     pinned here)."""
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
-    from oavif_tpu.av1.cdef import cdef_frame
-    from oavif_tpu.av1.frame import encode_frame_planes
-    from oavif_tpu.av1.loopfilter import loop_filter_frame
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.av1.cdef import cdef_frame
+    from oavif_jax.av1.frame import encode_frame_planes
+    from oavif_jax.av1.loopfilter import loop_filter_frame
 
     rgb = np.full((128, 128, 3), 120, np.uint8)
     rgb[64:, :, 0] = 180
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
+    from oavif_jax.av1.yuv import rgb_to_yuv444
 
     planes = rgb_to_yuv444(rgb, bitdepth=8)
     payloads, recon, blocks = encode_frame_planes(
-        planes, 152, speed=9, sb128=True, use_tpu_planner=False)
+        planes, 152, speed=9, sb128=True, use_device_planner=False)
     assert any(b[2] == 128 for b in blocks)
     loop_filter_frame(recon, blocks, (12, 12, 12, 12), bitdepth=8,
                       visible=(128, 128))
@@ -123,7 +123,7 @@ def test_sb128_loop_filter_and_cdef_exact():
 def test_sb128_c_python_byte_identity():
     """Both mirrored coders produce identical sb128 streams, including
     the two-gate 128 partition duel."""
-    from oavif_tpu.av1.entropy.fast import get_lib, tile_encode_native
+    from oavif_jax.av1.entropy.fast import get_lib, tile_encode_native
 
     if get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -148,10 +148,10 @@ def test_sb128_product_path_decodes_exact():
     decode (dav1d) to exactly the scored recon."""
     import types as pytypes
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.av1.yuv import yuv444_to_rgb
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.av1.yuv import yuv444_to_rgb
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.options import EncOptions
 
     rng = np.random.default_rng(8)
     yy = np.mgrid[0:256, 0:256][0]
@@ -193,12 +193,12 @@ def test_sb128_edge_availability_with_plan_decodes_exact():
     C coder with a plan, and C<->Python byte parity with the same plan."""
     import types as pytypes
 
-    from oavif_tpu.av1.encode import encode_avif_with_recon
-    from oavif_tpu.av1.entropy.fast import tile_encode_native
-    from oavif_tpu.av1.frame import _get_planner
-    from oavif_tpu.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
-    from oavif_tpu.io.avif_ctypes import decode_to_yuv
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.av1.encode import encode_avif_with_recon
+    from oavif_jax.av1.entropy.fast import tile_encode_native
+    from oavif_jax.av1.frame import _get_planner
+    from oavif_jax.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
+    from oavif_jax.io.avif_ctypes import decode_to_yuv
+    from oavif_jax.options import EncOptions
 
     rng = np.random.default_rng(1017)
     yy, xx = np.mgrid[0:256, 0:256].astype(np.float64)

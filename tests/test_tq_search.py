@@ -7,13 +7,13 @@ models, asserting the exact (q, score) probe sequence and final selection.
 
 import math
 
-from oavif_tpu.tq import (
+from oavif_jax.tq import (
     PassResult,
     find_target_quality,
     interpolate_quantizer,
     predict_q_from_score,
 )
-from oavif_tpu.tq.search import find_target_quality_batched
+from oavif_jax.tq.search import find_target_quality_batched
 
 
 def test_seed_prediction_matches_reference_formula():
@@ -156,11 +156,11 @@ def test_search_encode_batched_hits_target(monkeypatch):
     """The batched driver must hit the target within tolerance on the real
     encoder and reuse a cached bitstream for the selected quantizer."""
     import numpy as np
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
-    from oavif_tpu.tq.driver import search_encode
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions
+    from oavif_jax.tq.driver import search_encode
 
     rng = np.random.default_rng(5)
     yy, xx = np.mgrid[0:128, 0:128].astype(np.float64)
@@ -173,7 +173,7 @@ def test_search_encode_batched_hits_target(monkeypatch):
     src = Image(width=128, height=128, channels=3, hbd=False, data=img)
     ctx = EncCtx(o=EncOptions(tenbit=False), src=src, rgb=img, w=128, h=128)
     monkeypatch.setenv("OAVIF_TQ_BATCH", "1")
-    res, data = search_encode(ctx, TpuBackend())
+    res, data = search_encode(ctx, OavifBackend())
     assert data[:12].endswith(b"ftyp" + b"avif") or data[4:8] == b"ftyp"
     assert res.num_pass <= ctx.o.max_pass
     # either within tolerance or the best-achievable endpoint

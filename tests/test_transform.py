@@ -4,7 +4,7 @@ bit-identity, forward/inverse round trip."""
 import numpy as np
 import pytest
 
-from oavif_tpu.av1 import transform as T
+from oavif_jax.av1 import transform as T
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
@@ -20,7 +20,7 @@ def test_idct_structure_matches_float_dct3(n):
 
 @pytest.mark.parametrize("size", [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64)])
 def test_native_matches_python_inverse(size, rng):
-    from oavif_tpu.av1.entropy.fast import inv_txfm2d_native, get_lib
+    from oavif_jax.av1.entropy.fast import inv_txfm2d_native, get_lib
 
     if get_lib() is None:
         pytest.skip("native lib unavailable")
@@ -60,7 +60,7 @@ def test_forward_inverse_roundtrip(n, rng):
 
 
 def test_adst_roundtrip_all_sizes(rng):
-    from oavif_tpu.av1.transform import fwd_txfm2d, inv_txfm2d
+    from oavif_jax.av1.transform import fwd_txfm2d, inv_txfm2d
     import numpy as np
 
     for n in (4, 8, 16):
@@ -81,7 +81,7 @@ def test_rect_scans_are_transposed_pairs():
     DC first, and each wide/tall pair is an exact transpose of the other
     (the AV1 structural relation — strong evidence the right rodata
     tables were found)."""
-    from oavif_tpu.av1.tables import TABLES
+    from oavif_jax.av1.tables import TABLES
 
     for name, n, w in [("scan_4x8", 32, 4), ("scan_8x4", 32, 8),
                        ("scan_8x16", 128, 8), ("scan_16x8", 128, 16),
@@ -105,7 +105,7 @@ def test_rect_forward_inverse_roundtrip(h, w, rng):
     """fwd_matrices/inv_txfm2d already handle rect shapes (the sqrt2
     stage scale included): an exact forward of a residual must come back
     through the normative integer inverse within rounding distance."""
-    from oavif_tpu.av1.transform import fwd_matrices, inv_txfm2d
+    from oavif_jax.av1.transform import fwd_matrices, inv_txfm2d
 
     resid = rng.integers(-255, 256, (h, w)).astype(np.int64)
     fh, fw = fwd_matrices(w, h)
@@ -119,7 +119,7 @@ def test_rect_forward_inverse_roundtrip(h, w, rng):
 def test_rect_int16_forward_roundtrip(h, w, rng):
     """The Q12 integer forward path (the production quantizer's front
     end) handles rect shapes: exact int pipeline, inverse within 1 LSB."""
-    from oavif_tpu.av1.transform import fwd_matrices_int16, inv_txfm2d
+    from oavif_jax.av1.transform import fwd_matrices_int16, inv_txfm2d
 
     fh16, fw16, sa = fwd_matrices_int16(w, h, "dct_dct", 8)
     resid = rng.integers(-255, 256, (h, w)).astype(np.int32)

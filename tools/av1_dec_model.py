@@ -20,14 +20,14 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oavif_tpu.av1.consts import (  # noqa: E402
+from oavif_jax.av1.consts import (  # noqa: E402
     DC_PRED, INTRA_MODE_CONTEXT, MODE_TO_ANGLE, UV_CFL_PRED, coeff_q_ctx,
 )
-from oavif_tpu.av1.entropy.rangecoder import RangeDecoder, update_cdf  # noqa: E402
-from oavif_tpu.av1.frame import CdfBank, TileEncoder  # noqa: E402
-from oavif_tpu.av1.intra import build_edges, predict  # noqa: E402
-from oavif_tpu.av1.tables import TABLES, ac_q, dc_q  # noqa: E402
-from oavif_tpu.av1.transform import inv_wht4x4  # noqa: E402
+from oavif_jax.av1.entropy.rangecoder import RangeDecoder, update_cdf  # noqa: E402
+from oavif_jax.av1.frame import CdfBank, TileEncoder  # noqa: E402
+from oavif_jax.av1.intra import build_edges, predict  # noqa: E402
+from oavif_jax.av1.tables import TABLES, ac_q, dc_q  # noqa: E402
+from oavif_jax.av1.transform import inv_wht4x4  # noqa: E402
 
 PARTITION_NONE, PARTITION_SPLIT = 0, 3
 

@@ -34,11 +34,11 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 os.environ.setdefault("OAVIF_PY_TILE", "1")
 
-from oavif_tpu.av1 import frame as frame_mod
-from oavif_tpu.av1.frame import TileEncoder, _adaptive
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
-from oavif_tpu.io.avif_ctypes import decode_to_yuv
+from oavif_jax.av1 import frame as frame_mod
+from oavif_jax.av1.frame import TileEncoder, _adaptive
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.io.avif_ctypes import decode_to_yuv
 
 
 def make_planes(n=32, seed=3):
@@ -87,7 +87,7 @@ class _TraceShim:
             base[...] = snap
 
     def replay(self) -> bytes:
-        from oavif_tpu.av1.entropy.rangecoder import RangeEncoder, update_cdf
+        from oavif_jax.av1.entropy.rangecoder import RangeEncoder, update_cdf
 
         enc = RangeEncoder()
         for op, x, y in self.ops:

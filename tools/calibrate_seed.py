@@ -2,10 +2,10 @@
 
 Generates a diverse synthetic 512x512 corpus, finds each image's exact
 q*(tgt) by a fine-tolerance search, and fits q* against cheap content
-features (luma high-frequency energy). Run with OAVIF_TPU_PLANNER=0 for
+features (luma high-frequency energy). Run with OAVIF_DEVICE_PLANNER=0 for
 speed; the plan's effect on q* is < 1 quality step.
 
-    OAVIF_TPU_PLANNER=0 python tools/calibrate_seed.py [tgt]
+    OAVIF_DEVICE_PLANNER=0 python tools/calibrate_seed.py [tgt]
 """
 
 from __future__ import annotations
@@ -116,18 +116,18 @@ def luma_hf_energy(rgb):
 def main():
     tgt = float(sys.argv[1]) if len(sys.argv) > 1 else 80.0
     import bench  # noqa: F401  (path setup)
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
-    from oavif_tpu.tq.driver import make_probe
-    from oavif_tpu.tq.search import find_target_quality
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.metric.native import compute_ssimulacra2_native
+    from oavif_jax.tq.driver import make_probe
+    from oavif_jax.tq.search import find_target_quality
 
     imgs = gen_corpus()
-    tpu = TpuBackend()
+    enc = OavifBackend()
     rows = []
     for name, img in imgs.items():
         ctx = bench._make_ctx(img)
         ctx.o.max_pass = 10
-        p = make_probe(ctx, tpu, lambda r, d: compute_ssimulacra2_native(r, d))
+        p = make_probe(ctx, enc, lambda r, d: compute_ssimulacra2_native(r, d))
         res = find_target_quality(p, tgt, 0.75, 10)
         feat = luma_hf_energy(img)
         rows.append((name, feat, res.q, round(res.score, 2), ctx.num_pass))

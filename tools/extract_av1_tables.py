@@ -7,7 +7,7 @@ but the Debian libaom runtime (/usr/lib/x86_64-linux-gnu/libaom.so.3) embeds
 them in .rodata. This tool locates each table by structural signature
 (libaom stores CDFs as inverse-CDF Q15 arrays: strictly decreasing values
 then a 0 terminator and a 0 adaptation counter) and verifies known anchor
-values from the specification before emitting `oavif_tpu/av1/av1_tables.npz`.
+values from the specification before emitting `oavif_jax/av1/av1_tables.npz`.
 
 Every extracted table is independently validated end-to-end by the
 conformance tests: bitstreams produced with these tables must decode
@@ -26,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 LIBAOM = "/usr/lib/x86_64-linux-gnu/libaom.so.3.6.0"
-OUT = Path(__file__).resolve().parent.parent / "oavif_tpu" / "av1" / "av1_tables.npz"
+OUT = Path(__file__).resolve().parent.parent / "oavif_jax" / "av1" / "av1_tables.npz"
 
 
 def load_rodata() -> np.ndarray:

@@ -31,15 +31,15 @@ def main():
     bm = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bm)
 
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.backend.oracle import OracleBackend
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.metric.native import compute_ssimulacra2_native as score_fn
-    from oavif_tpu.options import EncOptions
-    from oavif_tpu.tq.driver import search_encode
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.backend.oracle import OracleBackend
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.io.image import Image
+    from oavif_jax.metric.native import compute_ssimulacra2_native as score_fn
+    from oavif_jax.options import EncOptions
+    from oavif_jax.tq.driver import search_encode
 
-    tpu, orc = TpuBackend(), OracleBackend()
+    enc, orc = OavifBackend(), OracleBackend()
 
     def mk(img, **kw):
         h, w = img.shape[:2]
@@ -55,7 +55,7 @@ def main():
                  "mixed"]:
         img = getattr(bm, "_img_" + name)(512, 512)
         r, data = search_encode(
-            mk(img, score_tgt=80.0, tolerance=0.5, max_pass=8), tpu)
+            mk(img, score_tgt=80.0, tolerance=0.5, max_pass=8), enc)
         by_o, sc_o = len(data), r.score
 
         pts = {}

@@ -20,12 +20,12 @@ os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 def main():
     import jax
 
-    if os.environ.get("LADDER_TPU") != "1":
+    if os.environ.get("LADDER_DEVICE") != "1":
         jax.config.update("jax_platforms", "cpu")
     import bench
-    from oavif_tpu.av1 import frame as F
-    from oavif_tpu.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
+    from oavif_jax.av1 import frame as F
+    from oavif_jax.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
+    from oavif_jax.metric.native import compute_ssimulacra2_native
 
     img = bench._img_fractal(512, 512)
     planes = rgb_to_yuv444(img, bitdepth=8)
@@ -41,12 +41,12 @@ def main():
         for _ in range(3):
             F._DEC_CACHE.clear()
             p, r, b = F.encode_frame_planes(
-                planes, q, 8, speed, use_tpu_planner=True, u_ac_delta_q=32
+                planes, q, 8, speed, use_device_planner=True, u_ac_delta_q=32
             )
             t0 = time.perf_counter()
             F._DEC_CACHE.clear()
             p, r, b = F.encode_frame_planes(
-                planes, q, 8, speed, use_tpu_planner=True, u_ac_delta_q=32
+                planes, q, 8, speed, use_device_planner=True, u_ac_delta_q=32
             )
             dt = time.perf_counter() - t0
             if best is None or dt < best[0]:

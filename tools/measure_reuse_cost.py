@@ -27,15 +27,15 @@ os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 def main():
     import jax
 
-    if os.environ.get("REUSE_COST_TPU") != "1":
+    if os.environ.get("REUSE_COST_DEVICE") != "1":
         jax.config.update("jax_platforms", "cpu")
     import bench
-    from oavif_tpu.av1 import encode as E
-    from oavif_tpu.av1 import frame as F
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.metric.native import compute_ssimulacra2_native
+    from oavif_jax.av1 import encode as E
+    from oavif_jax.av1 import frame as F
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.metric.native import compute_ssimulacra2_native
 
-    tpu = TpuBackend()
+    enc = OavifBackend()
     images = {
         "sinusoid": bench._img_sinusoid(512, 512),
         "fractal": bench._img_fractal(512, 512),
@@ -54,15 +54,15 @@ def main():
                 F._PLANNER_CACHE.clear()
                 E._SRC_CACHE.clear()
                 ctx.q = qf
-                fresh, rec_f = tpu.encode_with_recon(ctx)
+                fresh, rec_f = enc.encode_with_recon(ctx)
                 s_f = compute_ssimulacra2_native(img, rec_f)
                 # windowed: seed the caches at q0, then encode at qf
                 F._DEC_CACHE.clear()
                 F._PLANNER_CACHE.clear()
                 ctx.q = q0
-                tpu.encode_with_recon(ctx)
+                enc.encode_with_recon(ctx)
                 ctx.q = qf
-                reuse, rec_r = tpu.encode_with_recon(ctx)
+                reuse, rec_r = enc.encode_with_recon(ctx)
                 s_r = compute_ssimulacra2_native(img, rec_r)
                 db = 100.0 * (len(reuse) - len(fresh)) / len(fresh)
                 ds = s_r - s_f

@@ -15,11 +15,11 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from oavif_tpu.av1.frame import TileEncoder
-from oavif_tpu.av1.mux import mux_avif
-from oavif_tpu.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
-from oavif_tpu.av1.transform import idct_1d, _round2
-from oavif_tpu.io.avif_ctypes import decode_to_yuv
+from oavif_jax.av1.frame import TileEncoder
+from oavif_jax.av1.mux import mux_avif
+from oavif_jax.av1.obu import FrameConfig, SequenceConfig, assemble_av1_stream
+from oavif_jax.av1.transform import idct_1d, _round2
+from oavif_jax.io.avif_ctypes import decode_to_yuv
 
 H, W = 32, 64
 TH, TW = 16, 32  # the 32x16 block (w=32, h=16)

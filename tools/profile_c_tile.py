@@ -171,10 +171,10 @@ def main():
     bm = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bm)
 
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.backend.tpu import TpuBackend
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
+    from oavif_jax.backend import EncCtx
+    from oavif_jax.backend.oavif import OavifBackend
+    from oavif_jax.io.image import Image
+    from oavif_jax.options import EncOptions
 
     img = getattr(bm, f"_img_{img_name}")(512, 512)
     ctx = EncCtx(
@@ -182,7 +182,7 @@ def main():
         src=Image(width=512, height=512, channels=3, hbd=False, data=img),
         rgb=img, w=512, h=512, q=quality,
     )
-    be = TpuBackend()
+    be = OavifBackend()
     # passes=1 dumps the record-mode (first) encode; passes=2 warms the
     # decision cache first, then dumps a replay encode
     for i in range(passes):
@@ -192,7 +192,7 @@ def main():
         os.environ.pop("OAVIF_DUMP_TILE_INPUTS", None)
 
     (OUT / "prof_main.c").write_text(PROF_MAIN)
-    ent = Path(__file__).resolve().parent.parent / "oavif_tpu/av1/entropy"
+    ent = Path(__file__).resolve().parent.parent / "oavif_jax/av1/entropy"
     subprocess.run(
         ["gcc", "-O3", "-march=native", "-pg",
          "--param", "vect-max-version-for-alias-checks=40",
